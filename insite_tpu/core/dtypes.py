@@ -1,4 +1,4 @@
-"""Dtype policy: float32 on TPU (MXU/VPU native), float64 on CPU for
+"""Dtype policy: float32 on the accelerator, float64 (x64 enabled) for
 reference-parity tests (the reference pipeline is f64 end-to-end —
 pkpd/utils.py:2, run.py:8; SURVEY.md §7 'hard parts')."""
 

@@ -5,10 +5,10 @@ models alike) with a fixed-grid Euler scheme that subdivides every observation
 interval into ``STEPS_FOR_DT`` sub-steps
 (/root/reference/libs_m/ct/src/data/pkpd/utils.py:68-94).  We keep those exact
 semantics — the benchmark's data *embodies* this discretisation — but express
-them TPU-first:
+them as batched array programs:
 
 - state is a whole batch (any pytree of arrays with leading batch dims), so a
-  single `lax.scan` advances every patient at once on the VPU instead of
+  single `lax.scan` advances every patient at once instead of
   `vmap`-ing a scalar integrator;
 - the sub-step loop is unrolled (``STEPS_FOR_DT`` is a small static constant),
   letting XLA fuse the five multiply-adds per interval into one kernel;
@@ -49,7 +49,7 @@ def euler_rollout(f: Callable, y0, ts, *args, substeps: int = STEPS_FOR_DT):
 
     Batched analogue of the reference ``odeint``
     (pkpd/utils.py:86-94): the scan runs over time only; the batch lives
-    inside ``y0``/``args`` and is advanced in lock-step on the VPU.
+    inside ``y0``/``args`` and is advanced in lock-step.
     """
 
     def step(y, tdt):

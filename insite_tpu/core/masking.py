@@ -1,6 +1,6 @@
 """Masking utilities for ragged, fixed-shape sequence batches.
 
-TPU programs are static-shape; variable-length trajectories are represented as
+XLA programs are static-shape; variable-length trajectories are represented as
 fixed-width arrays plus `sequence_lengths` / `active_entries` masks
 (reference: pkpd/dataset.py:159-168, pkpd/utils.py:367-370).
 """

@@ -76,7 +76,7 @@ class PolynomialLibrary:
 
         X: [..., n_inputs] -> [..., n_features].  Monomials are built by
         unrolled column products (static shapes, XLA fuses the handful of
-        multiplies into one VPU kernel).
+        multiplies into one kernel).
         """
         exps = self.exponents()
         cols = []

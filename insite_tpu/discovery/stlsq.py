@@ -47,7 +47,7 @@ def stlsq(theta, y, threshold, alpha, sample_weight=None, max_iter: int = 20,
     ``LSQIntialMask`` initial-guess variant (pkpd/utils.py:244-327).
     """
     dtype = theta.dtype
-    # precision='highest': TPU matmuls default to bf16 passes — the gram
+    # precision='highest': f32 matmuls default to TF32 on the GPU — the gram
     # accumulation over ~60k rows needs true f32 or the near-collinear
     # static columns of the polynomial library wash out
     if sample_weight is not None:
@@ -99,7 +99,7 @@ def _qr_reduce(theta, y, sample_weight):
     near-collinear directions of the polynomial library (u-columns of the
     EQ_4 statics are 0.5±0.05 — the '1'/'u0'/'u1'/'u0 u1' block is nearly
     rank one), while QR keeps the error at eps·cond(Θ).  The O(N·F²) work
-    runs on the MXU; only the F×F triangle leaves the device.
+    runs on the device; only the F×F triangle leaves it.
     """
     if sample_weight is not None:
         w = jnp.sqrt(sample_weight.astype(theta.dtype))

@@ -3,7 +3,7 @@ compactly-supported test functions so no derivative estimate is needed.
 
 Reference uses pysindy's WeakPDELibrary (K=100 random subdomains, polynomial
 test functions) + SR3(l1, normalize_columns) (sindy.py:218-271; EQ_4 only —
-run.py:100-102 skips wsindy elsewhere).  TPU-native version: the K window
+run.py:100-102 skips wsindy elsewhere).  Batched version: the K window
 integrals for *every trajectory at once* are two einsum contractions against
 precomputed quadrature weights; SR3 is a fixed-iteration prox loop.
 
@@ -151,8 +151,9 @@ def weak_system(volumes, statics, lengths, library, dt,
         axis=-1)
     theta = library(X)                                        # [B, K, w, F]
 
-    lhs = -jnp.einsum('bkw,w->bk', x_win, wdphi)
-    rhs = jnp.einsum('bkwf,w->bkf', theta, wphi)
+    # f32 contractions default to TF32 on the GPU: keep them exact
+    lhs = -jnp.einsum('bkw,w->bk', x_win, wdphi, precision='highest')
+    rhs = jnp.einsum('bkwf,w->bkf', theta, wphi, precision='highest')
 
     w = ok_win.reshape(-1).astype(volumes.dtype)
     A = rhs.reshape(-1, rhs.shape[-1])
@@ -249,7 +250,8 @@ def weak_select_traced(cands, flat_theta, flat_y, sample_w,
     best; equal nnz -> later grid index (larger threshold); an all-zero
     candidate (nnz=0 fits nothing) only if no nonzero one is admissible.
     Mirrors `weak_select_host` (unit-tested against it)."""
-    resid = flat_theta @ cands.T - flat_y[:, None]            # [N, G]
+    resid = jnp.matmul(flat_theta, cands.T,
+                       precision='highest') - flat_y[:, None]  # [N, G]
     wn = jnp.maximum(jnp.sum(sample_w), 1.0)
     rmse = jnp.sqrt(jnp.sum(resid * resid * sample_w[:, None], axis=0) / wn)
     nnz = jnp.sum(jnp.abs(cands) > 1e-12, axis=-1)            # [G]
@@ -345,7 +347,7 @@ def weak_stlsq(A, b, sample_weight, threshold, alpha: float = 0.5,
     norms = jnp.where(norms > 0, norms, 1.0)
     An = Aw / norms[None, :]
     bn = bw / jnp.maximum(jnp.linalg.norm(bw), 1e-30)
-    # true-f32 accumulation (TPU matmuls default to bf16 passes)
+    # true-f32 accumulation (f32 matmuls default to TF32 on the GPU)
     G = jnp.einsum('nf,ng->fg', An, An, precision='highest')
     rhs = jnp.einsum('nf,n->f', An, bn, precision='highest')
     F = A.shape[1]

@@ -687,7 +687,7 @@ def _vectorized_column(cfg: RunConfig, dataset_name: str, method_name: str,
 def vectorized_sweep(cfg: RunConfig, log=logger):
     """`run.py --vectorized`: each (dataset, method) benchmark column runs
     as ONE on-device multi-seed dispatch (harness/vectorized[_neural] —
-    the TPU-native replacement for the reference's multiprocessing pool,
+    the batched replacement for the reference's multiprocessing pool,
     run.py:91-131) and is logged as standard per-seed result rows, so
     `process_result_file.py` and `df_from_log` work unchanged.
 
@@ -698,9 +698,9 @@ def vectorized_sweep(cfg: RunConfig, log=logger):
     compiled program reused across gammas).
 
     With ``cfg.isolate_runs`` each column executes in a fresh interpreter
-    (harness/isolated.py): a device-level failure — e.g. the TPU worker
-    crash that killed every column after the first in the round-3 queue —
-    costs one column, not the rest of the sweep.
+    (harness/isolated.py): a device-level failure — e.g. a device fault
+    that would take every later column down with it — costs one column,
+    not the rest of the sweep.
     """
     _log_fingerprint(cfg, cfg.experiment, log)
     if cfg.experiment == 'INSIGHT_CONFOUNDING':

@@ -1,4 +1,4 @@
-"""Hyperparameter tuning — TPU-native re-expression of the reference's
+"""Hyperparameter tuning — batched re-expression of the reference's
 Ray Tune + Optuna `finetune` path (time_varying_model.py:319-395 and the
 `hparams_grid` YAMLs under config/backbone/*_hparams/).
 
@@ -85,7 +85,7 @@ def tune_insite_lam(model, val_f, lam_grid=INSITE_LAM_GRID,
     """Pick the proximal-penalty lam minimising validation factual RMSE.
 
     Every lam in the grid is evaluated in ONE jitted dispatch: the grid is a
-    leading vmap axis over the per-patient BFGS fine-tune, so the TPU sees a
+    leading vmap axis over the per-patient BFGS fine-tune, so the device sees a
     (len(grid) * n_val_patients)-wide batch. Sets `model.cfg.lam` to the
     winner and returns (best_lam, {lam: rmse_all}).
     """

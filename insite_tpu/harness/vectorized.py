@@ -1,6 +1,6 @@
 """Vectorized multi-seed benchmark: the reference's run-level parallelism
 (`multiprocessing.Pool` over (seed, dataset, method) runs, run.py:91-131)
-re-expressed the TPU way — every seed's ENTIRE pipeline (simulate cohort ->
+as one program — every seed's ENTIRE pipeline (simulate cohort ->
 build design -> STLSQ discovery -> INSITE fine-tune -> counterfactual
 evaluation) is a pure function of its PRNG key, so a seed sweep is one
 `vmap` and the whole main-table column runs in a single XLA dispatch.
@@ -252,16 +252,16 @@ def vectorized_eq4_sweep(equation_str: str, n_seeds: int = 10,
     log-table protocol.
 
     With a `mesh` (1-D batch mesh), the seed axis is sharded across
-    devices — each chip runs its seeds' whole pipelines independently
-    (embarrassingly parallel; no collectives), so the sweep scales
-    linearly over ICI. n_seeds must then be a multiple of the mesh size.
+    devices — each device runs its seeds' whole pipelines independently
+    (embarrassingly parallel; no collectives). n_seeds must then be a
+    multiple of the mesh size.
     """
     assert 'EQ_4' in equation_str
     assert method in ('insite', 'sindy', 'wsindy')
     keys = jnp.stack([jax.random.PRNGKey(s) for s in range(n_seeds)])
     if mesh is not None:
-        # shard the seed axis: each chip runs its seeds' whole pipelines
-        # independently (no collectives) — linear scaling over ICI
+        # shard the seed axis: each device runs its seeds' whole
+        # pipelines independently (no collectives)
         assert n_seeds % mesh.devices.size == 0, \
             'n_seeds must be a multiple of the mesh size'
         from jax.sharding import NamedSharding, PartitionSpec as P
@@ -310,11 +310,11 @@ def vectorized_confounding_sweep(equation_str: str = 'EQ_4_D',
                           method == 'insite', gn_iters, projection_horizon,
                           wsindy=(method == 'wsindy'))
 
-    # one dispatch per gamma (vmapping the full gamma x seed grid exhausts
-    # the TPU worker at 5 x 10 pipeline instances, same limit as the tumor
-    # sweep's seed chunking); _sweep_jit is already jitted with gamma as a
-    # traced scalar, so every gamma reuses ONE compiled program, and the
-    # tiny outputs come back in one batched device_get
+    # one dispatch per gamma (vmapping the full gamma x seed grid exhausted
+    # a 16 GiB device at 5 x 10 pipeline instances, same limit as the
+    # tumor sweep's seed chunking); _sweep_jit is already jitted with gamma
+    # as a traced scalar, so every gamma reuses ONE compiled program, and
+    # the tiny outputs come back in one batched device_get
     outs = jax.device_get([for_gamma(g) for g in gam])
     rmse_orig, rmse_all, rmse_last, n_step, _ = (
         np.stack([o[i] for o in outs]) for i in range(5))
@@ -379,7 +379,7 @@ def _tumor_params_jax(key, n, chemo_coeff, radio_coeff,
     L = jnp.linalg.cholesky(cov)
     z = jax.random.normal(ks[2], (n, 16, 2), dtype)
     cand = jnp.asarray([alpha_params[0], rho_params[0]], dtype) + \
-        jnp.einsum('ngk,jk->ngj', z, L)
+        jnp.einsum('ngk,jk->ngj', z, L, precision='highest')
     ok = jnp.all(cand > 0.0, axis=-1)                      # [n, 16]
     first = jnp.argmax(ok, axis=1)
     pick = jnp.take_along_axis(cand, first[:, None, None].repeat(2, -1),
@@ -634,10 +634,10 @@ def vectorized_tumor_sweep(dataset_name: str, n_seeds: int = 10,
     assert dataset_name in TUMOR_VARIANTS
     assert method in ('insite', 'sindy')
     ptc, bcn, extra = TUMOR_VARIANTS[dataset_name]
-    # the EQ_5 program (dosage covariate -> 3-input library) hard-faults
-    # the TPU worker above ~5 seeds per dispatch ("TPU worker process
-    # crashed", reproducible at 10, fine at 5), so run seeds in chunks of
-    # at most 5 and concatenate on host — at most two compiled shapes
+    # the EQ_5 program (dosage covariate -> 3-input library) hard-faulted
+    # a 16 GiB device above ~5 seeds per dispatch (reproducible at 10,
+    # fine at 5), so run seeds in chunks of at most 5 and concatenate on
+    # host — at most two compiled shapes
     seed_chunk = 5
     chunks = []
     for s0 in range(0, n_seeds, seed_chunk):

@@ -34,7 +34,7 @@ def logistic_fit(X, Y, max_iter=100):
     host in true float64.  X: [N, D]; Y: [N, K] binary.
     Returns (W [K, D], b [K]).
 
-    Host solve on purpose: with x64 disabled (the TPU compute path), a jax
+    Host solve on purpose: with x64 disabled (the f32 compute path), a jax
     BFGS would silently run f32, where an unregularized NLL on a
     quasi-separable treatment column overflows the logits — the propensity
     model is tiny, numerically touchy, host-side work (like the reference's

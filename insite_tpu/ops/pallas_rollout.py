@@ -1,22 +1,28 @@
-"""Fused Euler-step + candidate-library rollout as a Pallas TPU kernel
-(SURVEY.md §7 build-plan step 10: the inner rollout of the discovered model).
+"""Fused Euler-step + candidate-library rollout as Pallas kernels for the
+GPU, lowered through Triton (SURVEY.md §7 build-plan step 10: the inner
+rollout of the discovered model).
 
-The XLA version (`models.sindy.batched_rollout`) is a `lax.scan` whose body
-stacks inputs to [..., n_inputs], evaluates the polynomial library, and
-contracts with per-arm coefficients — every step materialises [B, F]
-feature tensors in registers scheduled by XLA.  This kernel keeps the whole
-integration resident in VMEM with a *plane* layout: the batch is folded to
-``[rows, 128]`` (sublane x lane) tiles and every monomial is an unrolled
-product of [8, 128] planes on the VPU, so one grid program integrates 1024
-patients for all T steps with zero HBM traffic in between.
+The XLA version (`models.sindy.batched_rollout`) is a `lax.scan` of T steps
+x STEPS_FOR_DT Euler sub-steps; on a GPU it becomes a device while-loop
+that launches a few tiny fused kernels per step.  These kernels keep the
+whole integration of a block of patients inside one program: state,
+sensitivities and coefficients live in registers, one thread per patient,
+and the time loop runs inside the kernel.
 
-Used for the forward prediction paths (global SINDy/WSINDy rollouts over
-the exploded counterfactual test sets — hundreds of thousands of rows),
-and — via `pallas_rollout_with_sens` — for the INSITE Gauss-Newton
-fine-tune: the kernel integrates the forward-sensitivity ODE
-``s_j' = (dF/dy) s_j + theta_{f_j}(y) [arm == a_j]`` alongside the state,
-so one kernel call per GN iteration replaces XLA's jvp-through-scan
-(hundreds of tiny sequential kernels).
+Layout: patients are the contiguous (last) axis of every operand —
+coefficients ``[A*F, B]``, statics ``[S, B]``, arms and outputs ``[T, B]``,
+sensitivities ``[Kr, T, B]`` — so each step's loads and stores coalesce.
+The batch is padded to a whole number of power-of-two blocks (no masked
+loads, so interpret mode runs the same kernel on the CPU).
+
+Two entry points:
+
+- `pallas_batched_rollout`: forward prediction (global and fine-tuned
+  rollouts, the exploded counterfactual test sets);
+- `pallas_rollout_with_sens`: the INSITE Gauss-Newton fine-tune's
+  rollout + Jacobian — the forward-sensitivity ODE
+  ``s_j' = (dF/dy) s_j + theta_{f_j}(y) [arm == a_j]`` is integrated
+  alongside the state, one kernel call per GN iteration.
 """
 
 from __future__ import annotations
@@ -25,68 +31,98 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from insite_tpu.core.constants import STEPS_FOR_DT
 
-LANES = 128
-SUBLANES = 8
-BLOCK_B = LANES * SUBLANES  # 1024 patients per grid program
+WARP = 32
+MIN_BLOCK_B = 32
+MAX_BLOCK_B = 256
+# target number of programs: two per streaming multiprocessor of an H100
+# (132 SMs), so even a 10k-patient cohort spreads over the whole card
+TARGET_PROGRAMS = 264
 
 
-def _kernel(coefs_ref, y0_ref, statics_ref, arms_ref, out_ref, *,
-            exps, A, F, T, dt, substeps, y_clip):
-    """One grid program: integrate BLOCK_B patients for all T steps.
+def block_size(B: int) -> int:
+    """Patients per program: the largest power of two in
+    [MIN_BLOCK_B, MAX_BLOCK_B] that still gives TARGET_PROGRAMS programs
+    (the work is a latency-bound sequential chain per patient, so spreading
+    it over every SM matters more than fat blocks)."""
+    block = MAX_BLOCK_B
+    while block > MIN_BLOCK_B and -(-B // block) < TARGET_PROGRAMS:
+        block //= 2
+    return block
 
-    coefs_ref:   [A*F, 8, 128]  per-patient arm-major coefficients
-    y0_ref:      [8, 128]
-    statics_ref: [S, 8, 128]
-    arms_ref:    [T, 8, 128]    int32 arm index per step
-    out_ref:     [T, 8, 128]    predictions y[1..T]
-    """
+
+def _theta(planes, e):
+    """Monomial prod_i planes[i]**e[i] (None for the constant feature)."""
+    term = None
+    for i, p in enumerate(e):
+        for _ in range(int(p)):
+            term = planes[i] if term is None else term * planes[i]
+    return term
+
+
+def _dtheta_dy(planes, e):
+    """d/dy of the monomial (planes[0] is y); None when independent of y."""
+    p0 = int(e[0])
+    if p0 == 0:
+        return None
+    term = _theta([planes[0]] + list(planes[1:]), (p0 - 1,) + tuple(e[1:]))
+    if term is None:
+        return jnp.full_like(planes[0], float(p0))
+    return term * p0 if p0 > 1 else term
+
+
+def _arm_select(coefs, arm, A, F):
+    """Per-patient coefficient c_k = coefs[arm * F + k] for every feature."""
+    out = []
+    for k in range(F):
+        c_k = coefs[k]
+        for a in range(1, A):
+            c_k = jnp.where(arm == a, coefs[a * F + k], c_k)
+        out.append(c_k)
+    return out
+
+
+def _rollout_kernel(coefs_ref, y0_ref, statics_ref, arms_ref, out_ref, *,
+                    exps, A, F, S, T, dt, substeps, y_clip):
+    """One program: integrate one block of patients for all T steps.
+
+    coefs_ref [A*F, blk], y0_ref [blk], statics_ref [S, blk],
+    arms_ref [T, blk] int32, out_ref [T, blk] predictions y[1..T]."""
     h = dt / substeps
-    S = statics_ref.shape[0]
-    statics = [statics_ref[s] for s in range(S)]
+    coefs = [coefs_ref[k, :] for k in range(A * F)]
+    statics = [statics_ref[s, :] for s in range(S)]
 
-    def step(t, y):
-        arm = arms_ref[t]
-        # arm-select each coefficient plane: c_k = coefs[arm, k]
-        planes = [y] + statics
-        dy_coefs = []
-        for k in range(F):
-            c_k = coefs_ref[k]              # arm 0
-            for a in range(1, A):
-                c_k = jnp.where(arm == a, coefs_ref[a * F + k], c_k)
-            dy_coefs.append(c_k)
-
+    def step(t, carry):
+        y, arm = carry
+        # issue the next step's load now: its latency hides behind this
+        # step's arithmetic instead of stalling the next one
+        arm_next = arms_ref[jnp.minimum(t + 1, T - 1), :]
+        c = _arm_select(coefs, arm, A, F)
         for _ in range(substeps):
-            planes[0] = y
+            planes = [y] + statics
             dy = jnp.zeros_like(y)
             for k, e in enumerate(exps):
-                term = dy_coefs[k]
-                for i, p in enumerate(e):
-                    for _ in range(int(p)):
-                        term = term * planes[i]
-                dy = dy + term
+                th = _theta(planes, e)
+                dy = dy + (c[k] if th is None else c[k] * th)
             y = y + h * dy
         if y_clip is not None:
             y = jnp.clip(y, y_clip[0], y_clip[1])
-        out_ref[t] = y
-        return y
+        out_ref[t, :] = y
+        return y, arm_next
 
-    # mosaic's fori_loop supports only unroll=1 or full unroll; T is small
-    # (<= 65) so fully unroll — every iteration is straight-line VPU code
-    lax.fori_loop(0, T, step, y0_ref[:], unroll=T)
+    lax.fori_loop(0, T, step, (y0_ref[:], arms_ref[0, :]))
 
 
 def _sens_kernel(coefs_ref, y0_ref, statics_ref, arms_ref, out_ref,
-                 sens_ref, *, exps, A, F, T, dt, substeps, y_clip,
+                 sens_ref, *, exps, A, F, S, T, dt, substeps, y_clip,
                  active_idx):
     """Euler rollout + forward sensitivities for the active coefficient
-    coordinates, all resident in VMEM.
+    coordinates.
 
     For the library RHS F(y) = sum_k c_k theta_k(y, u) the sensitivity of
     the state wrt the flat coordinate j = (arm a_j, feature f_j) follows
@@ -95,213 +131,159 @@ def _sens_kernel(coefs_ref, y0_ref, statics_ref, arms_ref, out_ref,
 
     evaluated at the pre-update state (exactly XLA's jvp through the same
     Euler arithmetic).  y_clip zeroes sensitivities where the state was
-    clipped, matching jnp.clip's jvp.
-
-    sens_ref: [Kr, T, 8, 128] — d y_t / d c_active[j].
+    clipped, matching jnp.clip's jvp.  sens_ref: [Kr, T, blk].
     """
     h = dt / substeps
-    S = statics_ref.shape[0]
-    statics = [statics_ref[s] for s in range(S)]
+    coefs = [coefs_ref[k, :] for k in range(A * F)]
+    statics = [statics_ref[s, :] for s in range(S)]
     Kr = len(active_idx)
 
-    def theta(planes, e):
-        term = None
-        for i, p in enumerate(e):
-            for _ in range(int(p)):
-                term = planes[i] if term is None else term * planes[i]
-        return term if term is not None else jnp.ones_like(planes[0])
-
-    def dtheta_dy(planes, e):
-        p0 = int(e[0])
-        if p0 == 0:
-            return None                       # feature independent of y
-        term = None
-        for _ in range(p0 - 1):
-            term = planes[0] if term is None else term * planes[0]
-        for i, p in list(enumerate(e))[1:]:
-            for _ in range(int(p)):
-                term = planes[i] if term is None else term * planes[i]
-        if term is None:
-            return jnp.full_like(planes[0], float(p0))
-        return term * p0 if p0 > 1 else term
-
     def step(t, carry):
-        y, sens = carry
-        arm = arms_ref[t]
-        dy_coefs = []
-        for k in range(F):
-            c_k = coefs_ref[k]
-            for a in range(1, A):
-                c_k = jnp.where(arm == a, coefs_ref[a * F + k], c_k)
-            dy_coefs.append(c_k)
-
+        y, sens, arm = carry
+        arm_next = arms_ref[jnp.minimum(t + 1, T - 1), :]   # see above
+        c = _arm_select(coefs, arm, A, F)
         for _ in range(substeps):
             planes = [y] + statics
             dy = jnp.zeros_like(y)
             dFdy = jnp.zeros_like(y)
             for k, e in enumerate(exps):
-                dy = dy + dy_coefs[k] * theta(planes, e)
-                d = dtheta_dy(planes, e)
+                th = _theta(planes, e)
+                dy = dy + (c[k] if th is None else c[k] * th)
+                d = _dtheta_dy(planes, e)
                 if d is not None:
-                    dFdy = dFdy + dy_coefs[k] * d
+                    dFdy = dFdy + c[k] * d
             new_sens = []
             for j, (a_j, f_j) in enumerate(active_idx):
-                drive = theta(planes, exps[f_j])
+                drive = _theta(planes, exps[f_j])
+                if drive is None:
+                    drive = jnp.ones_like(y)
                 if A > 1:
-                    drive = jnp.where(arm == a_j, drive,
-                                      jnp.zeros_like(drive))
+                    drive = jnp.where(arm == a_j, drive, jnp.zeros_like(y))
                 new_sens.append(sens[j] + h * (dFdy * sens[j] + drive))
-            sens = new_sens
+            sens = tuple(new_sens)
             y = y + h * dy
         if y_clip is not None:
             inside = (y > y_clip[0]) & (y < y_clip[1])
             y = jnp.clip(y, y_clip[0], y_clip[1])
-            sens = [jnp.where(inside, s, jnp.zeros_like(s)) for s in sens]
-        out_ref[t] = y
+            sens = tuple(jnp.where(inside, s, jnp.zeros_like(s))
+                         for s in sens)
+        out_ref[t, :] = y
         for j in range(Kr):
-            sens_ref[j, t] = sens[j]
-        return y, sens
+            sens_ref[j, t, :] = sens[j]
+        return y, sens, arm_next
 
     y0 = y0_ref[:]
     lax.fori_loop(0, T, step,
-                  (y0, [jnp.zeros_like(y0) for _ in range(Kr)]), unroll=T)
+                  (y0, tuple(jnp.zeros_like(y0) for _ in range(Kr)),
+                   arms_ref[0, :]))
+
+
+def _to_patient_minor(library, coefs, y0, statics, arms, block):
+    """[B, ...] operands -> patient-minor layout padded to a whole number
+    of blocks.  Returns (B_pad, coefs [A*F, B_pad], y0 [B_pad],
+    statics [S, B_pad], arms [T, B_pad])."""
+    B, T = arms.shape
+    A, F = coefs.shape[-2:]
+    assert len(library.exponents()) == F
+    assert library.n_inputs == 1 + statics.shape[-1], \
+        'joint mode is not supported by the kernel'
+    B_pad = -(-B // block) * block
+    pad = B_pad - B
+
+    def minor(x):                          # [B, n] -> [n, B_pad]
+        return jnp.pad(x.T, ((0, 0), (0, pad)))
+
+    coefs_b = jnp.broadcast_to(coefs, (B, A, F)).reshape(B, A * F)
+    return (B_pad, minor(coefs_b), jnp.pad(y0, (0, pad)), minor(statics),
+            minor(arms.astype(jnp.int32)))
+
+
+def _specs(block, A, F, S, T):
+    return [
+        pl.BlockSpec((A * F, block), lambda i: (0, i)),
+        pl.BlockSpec((block,), lambda i: (i,)),
+        pl.BlockSpec((S, block), lambda i: (0, i)),
+        pl.BlockSpec((T, block), lambda i: (0, i)),
+    ]
+
+
+def _compiler_params(block):
+    return pl_triton.CompilerParams(num_warps=max(1, block // WARP),
+                                    num_stages=1)
 
 
 @functools.partial(jax.jit, static_argnames=('library', 'dt', 'substeps',
                                              'interpret', 'y_clip',
-                                             'active_idx'))
+                                             'active_idx', 'block'))
 def pallas_rollout_with_sens(library, coefs, y0, statics, arms, dt,
                              active_idx, substeps=STEPS_FOR_DT,
-                             interpret=False, y_clip=None):
+                             interpret=False, y_clip=None, block=None):
     """Rollout + d y / d c_active in ONE kernel pass.
 
     coefs: [B, A, F] per-patient coefficients; active_idx: static tuple of
     flat (arm*F + feature) coordinates.  Returns (preds [B, T],
-    sens [B, T, Kr]).
+    sens [B, T, Kr]).  interpret=True runs the kernel on the CPU (tests).
     """
     B, T = arms.shape
     A, F = coefs.shape[-2:]
     S = statics.shape[-1]
     exps = tuple(map(tuple, library.exponents()))
-    assert len(exps) == F
-    assert library.n_inputs == 1 + S, 'joint mode not supported in pallas'
-    dtype = y0.dtype
     act = tuple((int(i) // F, int(i) % F) for i in active_idx)
     Kr = len(act)
+    block = block or block_size(B)
+    B_pad, coefs_p, y0_p, statics_p, arms_p = _to_patient_minor(
+        library, coefs, y0, statics, arms, block)
 
-    B_pad = max(BLOCK_B, ((B + BLOCK_B - 1) // BLOCK_B) * BLOCK_B)
-    rows = B_pad // LANES
-    grid = (B_pad // BLOCK_B,)
-
-    def fold(x, fill=0):
-        pad = jnp.full((B_pad - B,) + x.shape[1:], fill, x.dtype)
-        x = jnp.concatenate([x, pad], axis=0)
-        x = jnp.moveaxis(x.reshape((rows, LANES) + x.shape[1:]), (0, 1),
-                         (-2, -1))
-        return x
-
-    coefs_b = jnp.broadcast_to(coefs, (B, A, F))
-    coefs_p = fold(coefs_b.reshape(B, A * F))
-    y0_p = fold(y0[:, None])[0]
-    statics_p = fold(statics)
-    arms_p = fold(arms.astype(jnp.int32))
-
-    kernel = functools.partial(_sens_kernel, exps=exps, A=A, F=F, T=T,
+    kernel = functools.partial(_sens_kernel, exps=exps, A=A, F=F, S=S, T=T,
                                dt=float(dt), substeps=substeps,
                                y_clip=y_clip, active_idx=act)
     out, sens = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((A * F, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((SUBLANES, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((T, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Kr, T, SUBLANES, LANES), lambda i: (0, 0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((T, rows, LANES), dtype),
-            jax.ShapeDtypeStruct((Kr, T, rows, LANES), dtype),
-        ],
+        grid=(B_pad // block,),
+        in_specs=_specs(block, A, F, S, T),
+        out_specs=[pl.BlockSpec((T, block), lambda i: (0, i)),
+                   pl.BlockSpec((Kr, T, block), lambda i: (0, 0, i))],
+        out_shape=[jax.ShapeDtypeStruct((T, B_pad), y0.dtype),
+                   jax.ShapeDtypeStruct((Kr, T, B_pad), y0.dtype)],
+        backend='triton',
+        compiler_params=_compiler_params(block),
         interpret=interpret,
+        name='insite_rollout_sens',
     )(coefs_p, y0_p, statics_p, arms_p)
-
-    out = jnp.moveaxis(out, 0, -1).reshape(B_pad, T)[:B]
-    sens = jnp.moveaxis(sens, (0, 1), (-1, -2)) \
-        .reshape(B_pad, T, Kr)[:B]
-    return out, sens
+    return out[:, :B].T, jnp.moveaxis(sens[:, :, :B], (0, 2), (2, 0))
 
 
-@functools.partial(jax.jit, static_argnames=('library', 'dt', 'shared_coefs',
-                                             'substeps', 'interpret',
-                                             'y_clip'))
+@functools.partial(jax.jit, static_argnames=('library', 'dt', 'substeps',
+                                             'interpret', 'y_clip', 'block'))
 def pallas_batched_rollout(library, coefs, y0, statics, arms, dt,
-                           shared_coefs=False, substeps=STEPS_FOR_DT,
-                           interpret=False, y_clip=None):
-    """Drop-in for `batched_rollout(..., joint=False)` on TPU.
+                           substeps=STEPS_FOR_DT, interpret=False,
+                           y_clip=None, block=None):
+    """`batched_rollout(..., joint=False)` on the GPU.
 
-    coefs: [1, A, F] (shared) or [B, A, F]; y0: [B]; statics: [B, S];
-    arms: [B, T] integer arm per step.  Returns [B, T] predictions.
-    Pass interpret=True to run the kernel in interpreter mode (CPU CI).
+    coefs: [1, A, F] (shared by every row) or [B, A, F]; y0: [B];
+    statics: [B, S]; arms: [B, T] integer arm per step.  Returns [B, T]
+    predictions.  interpret=True runs the kernel on the CPU (tests).
     """
     B, T = arms.shape
     A, F = coefs.shape[-2:]
     S = statics.shape[-1]
     exps = tuple(map(tuple, library.exponents()))
-    assert len(exps) == F
-    assert library.n_inputs == 1 + S, 'joint mode not supported in pallas'
-    dtype = y0.dtype
+    block = block or block_size(B)
+    B_pad, coefs_p, y0_p, statics_p, arms_p = _to_patient_minor(
+        library, coefs, y0, statics, arms, block)
 
-    B_pad = max(BLOCK_B, ((B + BLOCK_B - 1) // BLOCK_B) * BLOCK_B)
-    rows = B_pad // LANES
-    grid = (B_pad // BLOCK_B,)
-
-    def fold(x, fill=0):
-        """[B, ...] -> [..., rows, 128] plane layout."""
-        pad = jnp.full((B_pad - B,) + x.shape[1:], fill, x.dtype)
-        x = jnp.concatenate([x, pad], axis=0)
-        x = jnp.moveaxis(x.reshape((rows, LANES) + x.shape[1:]), (0, 1),
-                         (-2, -1))
-        return x
-
-    coefs_b = (jnp.broadcast_to(coefs, (B,) + coefs.shape[-2:])
-               if shared_coefs or coefs.shape[0] == 1 else coefs)
-    coefs_p = fold(coefs_b.reshape(B, A * F))          # [A*F, rows, 128]
-    y0_p = fold(y0[:, None])[0]                        # [rows, 128]
-    statics_p = fold(statics)                          # [S, rows, 128]
-    arms_p = fold(arms.astype(jnp.int32))              # [T, rows, 128]
-
-    kernel = functools.partial(_kernel, exps=exps, A=A, F=F, T=T,
-                               dt=float(dt), substeps=substeps,
+    kernel = functools.partial(_rollout_kernel, exps=exps, A=A, F=F, S=S,
+                               T=T, dt=float(dt), substeps=substeps,
                                y_clip=y_clip)
     out = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((A * F, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((SUBLANES, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, SUBLANES, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((T, SUBLANES, LANES), lambda i: (0, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, rows, LANES), dtype),
+        grid=(B_pad // block,),
+        in_specs=_specs(block, A, F, S, T),
+        out_specs=pl.BlockSpec((T, block), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((T, B_pad), y0.dtype),
+        backend='triton',
+        compiler_params=_compiler_params(block),
         interpret=interpret,
+        name='insite_rollout',
     )(coefs_p, y0_p, statics_p, arms_p)
-
-    # [T, rows, 128] -> [B, T]
-    out = jnp.moveaxis(out, 0, -1).reshape(B_pad, T)
-    return out[:B]
+    return out[:, :B].T

@@ -1,11 +1,14 @@
-"""Mesh / sharding helpers: batch data-parallelism over ICI.
+"""Mesh / sharding helpers: 1-D batch data parallelism.
 
 The reference's cross-device story is `jax.pmap` over CPU host devices
 spoofed via XLA_FLAGS, with a manual shard-and-pad hack
-(run.py:5-7, sindy.py:668-699,810-841).  TPU-native replacement: a 1-D
+(run.py:5-7, sindy.py:668-699,810-841).  Replacement: a 1-D
 `jax.sharding.Mesh` on the batch axis + `NamedSharding` annotations; XLA
-GSPMD partitions the already-`vmap`-ed kernels (simulation, rollout, INSITE
-BFGS) with zero code change to the math, and collectives ride ICI.
+GSPMD partitions the already-`vmap`-ed programs (simulation, rollout,
+INSITE fine-tune) with zero code change to the math.  The mesh follows the
+algorithm alone: on cards joined all to all by NVLink every device reaches
+every other at the same rate, and the only collective is the all-reduce of
+cross-row sums such as the STLSQ gram (see `row_mask`).
 """
 
 from __future__ import annotations

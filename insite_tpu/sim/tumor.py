@@ -1,7 +1,7 @@
 """Tumor-growth simulator core (Geng et al. 2017) — shared by the
 "cancer_sim" benchmark and the "continuous" EQ_5 A-D family.
 
-TPU-native re-design of the reference NumPy/python-loop simulators
+Batched array re-design of the reference NumPy/python-loop simulators
 (/root/reference/libs_m/ct/src/data/cancer_sim/cancer_simulation.py and
 continuous/continuous.py).  Discrete update per day
 (cancer_simulation.py:300-302):

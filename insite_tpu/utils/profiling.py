@@ -58,3 +58,36 @@ def wall_clock_logger(stage: str, log=None):
     yield
     jax.effects_barrier()
     (log or logger).info(f'[{stage}] {time.perf_counter() - t0:.2f}s')
+
+
+class NoGPUError(RuntimeError):
+    """A measurement or smoke path found no GPU; it does not fall back to
+    the CPU."""
+
+
+def require_gpus(count: int = 1):
+    """The first `count` JAX devices, which must be GPUs."""
+    devices = jax.devices()
+    if devices[0].platform != 'gpu':
+        raise NoGPUError(f'no GPU: JAX found {devices}')
+    if len(devices) < count:
+        raise NoGPUError(f'need {count} GPUs, JAX found {len(devices)}')
+    return devices[:count]
+
+
+def device_record(devices) -> dict:
+    """The device as JAX reports it, for every printed result."""
+    return {'platform': devices[0].platform,
+            'kind': devices[0].device_kind, 'count': len(devices)}
+
+
+def card_info() -> str:
+    """'<name>, <power limit>' of the first card, from nvidia-smi in a
+    child process that stays off JAX (a card below its top power limit
+    runs slower under load, so every kept number carries it)."""
+    import subprocess
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0].strip()

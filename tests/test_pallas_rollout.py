@@ -1,5 +1,6 @@
-"""Fused Pallas Euler+library rollout kernel (interpret mode on the CPU CI
-backend; the real-TPU parity + 4x speedup is exercised by bench/driver)."""
+"""Fused Pallas/Triton Euler+library rollout kernels, in interpret mode on
+the CPU, and the choice between them and the XLA scan.  The compiled
+kernels' parity on the GPU is checked by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +29,7 @@ def test_parity_with_xla_rollout(B, T, shared):
     ref = batched_rollout(lib, coefs, y0, statics, arms, 1 / 6,
                           joint=False, shared_coefs=shared)
     out = pallas_batched_rollout(lib, coefs, y0, statics, arms, 1 / 6,
-                                 shared_coefs=shared, interpret=True)
+                                 interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-6)
 
 
@@ -44,7 +45,7 @@ def test_four_arm_selection():
     ref = batched_rollout(lib, coefs, y0, statics, arms, 1.0,
                           joint=False, shared_coefs=True)
     out = pallas_batched_rollout(lib, coefs, y0, statics, arms, 1.0,
-                                 shared_coefs=True, interpret=True)
+                                 interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-6)
 
 
@@ -72,8 +73,7 @@ def test_y_clip_bounds_divergence_and_matches_pallas():
                           shared_coefs=True, y_clip=clip)
     assert float(ref.max()) <= 10.0 and np.isfinite(np.asarray(ref)).all()
     out = pallas_batched_rollout(lib, coefs, y0, statics, arms, 1.0,
-                                 shared_coefs=True, y_clip=clip,
-                                 interpret=True)
+                                 y_clip=clip, interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-6)
 
 
@@ -175,38 +175,140 @@ def test_pallas_gn_finetune_matches_xla_gn():
                                rtol=5e-4, atol=1e-4)
 
 
-def test_pallas_finetune_failure_falls_back_to_xla(monkeypatch):
-    """A sensitivity-kernel failure on the real backend degrades to the
-    XLA fine-tune (warned once, memoized) instead of killing the sweep or
-    bench — the kernel is validated in interpret mode on CPU, so its
-    first hardware lowering happens inside a driver run."""
+def _tiny_regressor(**cfg_kw):
     from insite_tpu.data import PkpdDatasetCollection
     from insite_tpu.models import sindy as sindy_mod
-
     coll = PkpdDatasetCollection(
         conf_coeff=2.0, num_patients={'train': 24, 'val': 4, 'test': 2},
         equation_str='EQ_4_D', seed=0)
-    kw = dict(dataset_name='EQ_4_D', sindy_threshold=0.1, sindy_alpha=0.5,
-              lam=10.0, insite=True)
-    ref = sindy_mod.SINDyRegressor(
-        sindy_mod.SINDyConfig(**kw, rollout_backend='xla'), coll) \
-        .fit(coll.train_f)
-    p_ref = np.asarray(ref._fine_tune(coll.train_f, 1)[0])
+    cfg = sindy_mod.SINDyConfig(dataset_name='EQ_4_D', sindy_threshold=0.1,
+                                sindy_alpha=0.5, lam=10.0, insite=True,
+                                **cfg_kw)
+    return sindy_mod.SINDyRegressor(cfg, coll), coll
 
-    calls = []
+
+@pytest.mark.parametrize('backend,cfg_kw,mesh,expected', [
+    ('gpu', {}, False, True),                         # auto on a GPU
+    ('cpu', {}, False, False),                        # auto elsewhere
+    ('gpu', {'rollout_backend': 'xla'}, False, False),
+    ('cpu', {'rollout_backend': 'pallas'}, False, True),
+    ('gpu', {}, True, False),                         # row-sharded: XLA
+    ('gpu', {'joint_model': True}, False, False),     # joint library: XLA
+    ('gpu', {'rollout_backend': 'pallas', 'joint_model': True}, False,
+     False),
+])
+def test_kernel_choice(monkeypatch, backend, cfg_kw, mesh, expected):
+    """`rollout_backend='auto'` takes the kernels exactly when the default
+    backend is a GPU; a mesh or the joint model always takes the XLA scan;
+    an explicit choice wins otherwise."""
+    from insite_tpu.models import sindy as sindy_mod
+    from insite_tpu.parallel import batch_mesh
+    monkeypatch.setattr(sindy_mod.jax, 'default_backend', lambda: backend)
+    m, _ = _tiny_regressor(**cfg_kw)
+    if mesh:
+        m.mesh = batch_mesh()
+    assert m._use_pallas() is expected
+
+
+def test_kernel_failure_is_not_swallowed(monkeypatch):
+    """A kernel that fails fails the fine-tune: no fallback to the XLA
+    scan hides it."""
+    from insite_tpu.models import sindy as sindy_mod
 
     def boom(*a, **k):
-        calls.append(1)
-        raise RuntimeError('RESOURCE_EXHAUSTED: vmem')
+        raise RuntimeError('kernel failed to lower')
 
     monkeypatch.setattr(sindy_mod, 'insite_gn_finetune_predict_pallas',
                         boom)
-    m = sindy_mod.SINDyRegressor(
-        sindy_mod.SINDyConfig(**kw, rollout_backend='pallas'), coll) \
-        .fit(coll.train_f)
-    p, _ = m._fine_tune(coll.train_f, 1)
-    assert getattr(m, '_pallas_failed', False)
-    np.testing.assert_allclose(np.asarray(p), p_ref, rtol=1e-7, atol=1e-9)
-    # memoized: a second fine-tune does not retry the broken kernel
-    m._fine_tune(coll.train_f, 1)
-    assert len(calls) == 1
+    m, coll = _tiny_regressor(rollout_backend='pallas')
+    m.fit(coll.train_f)
+    with pytest.raises(RuntimeError, match='failed to lower'):
+        m._fine_tune(coll.train_f, 1)
+
+
+def test_forced_kernel_off_the_gpu_needs_interpret_mode():
+    """Compiled (not interpret) kernels exist only for the GPU: asking for
+    them on the CPU raises instead of running something else."""
+    lib = PolynomialLibrary(n_inputs=2)
+    B, T = 4, 3
+    coefs = jnp.zeros((1, 2, lib.n_features), jnp.float32)
+    with pytest.raises(Exception, match='interpret'):
+        pallas_batched_rollout(lib, coefs, jnp.ones(B, jnp.float32),
+                               jnp.ones((B, 1), jnp.float32),
+                               jnp.zeros((B, T), jnp.int32), 1.0)
+
+
+@pytest.mark.parametrize('B,block', [(1, 32), (32, 32), (10_000, 32),
+                                     (40_000, 128), (10 ** 6, 256)])
+def test_block_size_spreads_the_grid(B, block):
+    """The largest power-of-two block in [32, 256] that still gives two
+    programs per SM of an H100 (264), so a 10k cohort fills the card."""
+    from insite_tpu.ops.pallas_rollout import block_size
+    assert block_size(B) == block
+
+
+@pytest.mark.parametrize('block', [32, 64])
+def test_results_do_not_depend_on_the_block(block):
+    """Padding the batch to whole blocks (here 70 rows -> 96 or 128) and
+    the block size itself leave every real row's result unchanged."""
+    from insite_tpu.ops.pallas_rollout import pallas_rollout_with_sens
+    lib = PolynomialLibrary(n_inputs=3)
+    rng = np.random.RandomState(3)
+    B, T = 70, 6
+    base = np.stack([[0, 0.3, 0, 0, -1.0, 0, 0],
+                     [0, -0.2, 0, 0, 0, -1.0, 0]]).astype(np.float32)
+    coefs = jnp.asarray(base[None] * (1 + 0.05 * rng.randn(B, 1, 1)),
+                        jnp.float32)
+    y0 = jnp.asarray(np.abs(rng.randn(B)) * 5 + 1, jnp.float32)
+    statics = jnp.asarray(rng.rand(B, 2), jnp.float32)
+    arms = jnp.asarray(rng.randint(0, 2, (B, T)), jnp.int32)
+    act = (1, 4, 12)
+    y_ref, s_ref = pallas_rollout_with_sens(lib, coefs, y0, statics, arms,
+                                            0.5, act, interpret=True)
+    y, s = pallas_rollout_with_sens(lib, coefs, y0, statics, arms, 0.5, act,
+                                    interpret=True, block=block)
+    assert y.shape == (B, T) and s.shape == (B, T, len(act))
+    np.testing.assert_array_equal(np.asarray(y), np.asarray(y_ref))
+    np.testing.assert_array_equal(np.asarray(s), np.asarray(s_ref))
+    out = pallas_batched_rollout(lib, coefs, y0, statics, arms, 0.5,
+                                 interpret=True, block=block)
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(y_ref))
+
+
+def test_sensitivity_kernel_degree4_library():
+    """The ablation's degree-4 library (powers of y up to 4, so dtheta/dy
+    carries a power factor) through the sensitivity kernel, against
+    jacfwd through the XLA rollout."""
+    import jax
+    from insite_tpu.ops.pallas_rollout import pallas_rollout_with_sens
+    lib = PolynomialLibrary(n_inputs=2, degree=4, interaction_only=False)
+    rng = np.random.RandomState(5)
+    B, T, A, F = 4, 8, 2, lib.n_features
+    c = np.zeros((A, F), np.float32)
+    exps = [tuple(e) for e in lib.exponents()]
+    c[:, exps.index((1, 0))] = [-0.5, -0.8]
+    c[:, exps.index((2, 0))] = [0.02, -0.01]
+    c[:, exps.index((4, 0))] = [-1e-4, 2e-4]
+    c[:, exps.index((1, 1))] = [0.1, 0.0]
+    coefs = jnp.asarray(np.repeat(c[None], B, 0))
+    y0 = jnp.asarray(rng.uniform(1, 3, B), jnp.float32)
+    statics = jnp.asarray(rng.rand(B, 1), jnp.float32)
+    arms = jnp.asarray(rng.randint(0, A, (B, T)), jnp.int32)
+    act = tuple(int(i) for i in np.flatnonzero(c.reshape(-1)))
+    y, s = pallas_rollout_with_sens(lib, coefs, y0, statics, arms, 0.25,
+                                    act, interpret=True)
+
+    def roll(c_red, b):
+        full = coefs[b].reshape(-1).at[jnp.asarray(act)].set(c_red)
+        return batched_rollout(lib, full.reshape(1, A, F), y0[b][None],
+                               statics[b][None], arms[b][None], 0.25,
+                               shared_coefs=True)[0]
+
+    for b in range(B):
+        c_red = coefs[b].reshape(-1)[jnp.asarray(act)]
+        np.testing.assert_allclose(np.asarray(y[b]),
+                                   np.asarray(roll(c_red, b)), rtol=2e-5)
+        np.testing.assert_allclose(
+            np.asarray(s[b]),
+            np.asarray(jax.jacfwd(lambda cr: roll(cr, b))(c_red)),
+            rtol=2e-4, atol=1e-5)

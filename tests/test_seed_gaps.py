@@ -29,8 +29,8 @@ def test_next_cell_consumes_priority_lines_one_shot(tmp_path, capsys,
                                                     monkeypatch):
     """logs/markers/priority_cells lines jump the thinness queue and are
     consumed exactly once per --next-cell read (the round-4 endgame
-    dispatch mechanism: TPU re-measures of suspect CPU-lane seeds, edct
-    close-out chunks)."""
+    dispatch mechanism: accelerator re-measures of suspect CPU-lane
+    seeds, edct close-out chunks)."""
     monkeypatch.chdir(tmp_path)
     os.makedirs('logs/markers')
     with open('logs/markers/priority_cells', 'w') as f:

@@ -497,7 +497,7 @@ def test_vectorized_neural_tumor_family_smoke():
     the same vmapped dispatches as EQ_4 but with the 4-class chemo/radio
     treatment layout and tumor scaling — smoke the enc-dec and RMSN
     columns on tiny cohorts so a layout regression surfaces here, not
-    first in a 10-seed TPU sweep."""
+    first in a 10-seed sweep on the accelerator."""
     import numpy as np
     from insite_tpu.harness.vectorized_neural import (
         vectorized_enc_dec_sweep, vectorized_rmsn_sweep)

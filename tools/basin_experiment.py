@@ -26,15 +26,17 @@ can never shadow the honest main-table rows.
 
 Usage: python tools/basin_experiment.py [--methods ct crn]
            [--seeds 5 6] [--alphas 0.001 0.0] [--platform cpu]
-CPU-lane safe (PARITY: these cells reproduce bit-identically CPU vs TPU).
+(PARITY: these cells reproduce bit-identically across platforms.)
 """
 
 import argparse
+import os
 import json
 import sys
 import time
 
-sys.path[0] = '/root/repo'   # tools/queue.py shadows stdlib `queue`
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def main():
@@ -43,14 +45,13 @@ def main():
     p.add_argument('--seeds', type=int, nargs='+', default=[5, 6])
     p.add_argument('--alphas', type=float, nargs='+', default=[0.001, 0.0])
     p.add_argument('--dataset', default='EQ_4_D')
-    p.add_argument('--platform', default='cpu', choices=('cpu', 'tpu'))
+    p.add_argument('--platform', default='cpu', choices=('cpu', 'gpu'))
     p.add_argument('--smoke', action='store_true',
                    help='tiny cohorts/epochs — plumbing validation only')
     args = p.parse_args()
 
     import jax
-    if args.platform == 'cpu':
-        jax.config.update('jax_platforms', 'cpu')
+    jax.config.update('jax_platforms', args.platform)
 
     from insite_tpu.harness.config import RunConfig
     from insite_tpu.harness.logging_utils import (

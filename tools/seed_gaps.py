@@ -105,8 +105,8 @@ def main():
         # one-shot priority lines: logs/markers/priority_cells holds
         # full "method dataset n mode start k" dispatch specs that jump
         # the thinness queue (e.g. re-measuring a suspect CPU-lane seed
-        # on the TPU so newest-wins dedup can adjudicate a platform-
-        # sensitive training basin). Each read consumes one line.
+        # on the accelerator so newest-wins dedup can adjudicate a
+        # platform-sensitive training basin). Each read consumes one line.
         pri = 'logs/markers/priority_cells'
         if os.path.exists(pri):
             with open(pri) as f:
@@ -128,8 +128,8 @@ def main():
         except OSError:
             pass
         # tie order at equal n: proven-cheap methods before the
-        # transformer families (edct's vectorized columns fault the TPU
-        # worker; ct's are unproven on-device this round). The flagship
+        # transformer families (edct's vectorized columns faulted a
+        # 16 GiB device; ct's are unproven on-device). The flagship
         # method's cells get a -2 thinness bonus: an incomplete INSITE
         # main-table column costs the paper's own story more than a
         # baseline's, and its columns are ~10x cheaper than neural ones.
@@ -182,9 +182,9 @@ def main():
         if not args.method:
             raise SystemExit('--list requires --method')
         # vectorized quarantine: methods listed in this marker file never
-        # enter a vectorized TPU stage (round 4: edct's vectorized columns
-        # fault the TPU worker; its cells are filled via the standard
-        # per-seed path instead — see tools/queue_r4c.sh)
+        # enter a vectorized stage (edct's vectorized columns faulted a
+        # 16 GiB device; its cells are filled via the standard per-seed
+        # path instead)
         try:
             with open('logs/markers/vectorized_exclude') as f:
                 if args.method in {l.strip() for l in f if l.strip()}:
