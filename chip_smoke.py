@@ -12,7 +12,8 @@ Runs, in one process on one GPU:
    y_clip tumor layout;
 3. the 10k-patient north star (`harness.northstar.fused_northstar`, the
    path `bench.py` times) with the kernel fine-tune and with the XLA
-   fine-tune, checked against each other and against a CPU f32 run;
+   fine-tune, checked against each other patient by patient and against a
+   CPU f32 run;
 4. the protocol cell through `harness.runner.run_experiment` (the function
    `run.py` drives): insite and sindy on EQ_4_D and cancer_sim, seed 0,
    1000/100/100 patients, checked against CPU f32 runs of the same calls.
@@ -264,8 +265,18 @@ def phase_northstar(card, devices):
     if not np.array_equal(np.abs(k['coefs']) > 1e-3,
                           np.abs(x['coefs']) > 1e-3):
         raise PhaseFailed('north star: sparse supports differ')
-    _check_close('north-star coefs kernel vs xla run', k['coefs'],
+    _check_close('north-star global coefs kernel vs xla run', k['coefs'],
                  x['coefs'], rtol=1e-5)
+    # the fine-tune itself, patient by patient: the kernel's forward
+    # sensitivities and the XLA jvp differ by f32 round-off (1e-6 relative,
+    # phase 2), which twelve Gauss-Newton solves carry into the fitted
+    # coefficients and the predictions (on an H100: predictions 1.3e-5
+    # absolute at most, coefficients 1.3e-4 relative at most)
+    _check_close('north-star fine-tuned preds kernel vs xla',
+                 k['preds'], x['preds'], rtol=1e-4, atol=1e-5)
+    _check_close('north-star per-patient coefs kernel vs xla',
+                 k['patient_coefs'], x['patient_coefs'], rtol=1e-3,
+                 atol=1e-5)
     _check_close('north-star factual RMSE kernel vs xla', k['rmse_orig'],
                  x['rmse_orig'], rtol=1e-3)
     _check_close('north-star factual RMSE vs CPU f32', k['rmse_orig'],

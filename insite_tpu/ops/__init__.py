@@ -1,2 +1,3 @@
-from insite_tpu.ops.pallas_rollout import (pallas_batched_rollout,
+from insite_tpu.ops.pallas_rollout import (kernels_default,
+                                           pallas_batched_rollout,
                                            pallas_rollout_with_sens)

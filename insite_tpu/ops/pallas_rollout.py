@@ -12,8 +12,8 @@ and the time loop runs inside the kernel.
 Layout: patients are the contiguous (last) axis of every operand —
 coefficients ``[A*F, B]``, statics ``[S, B]``, arms and outputs ``[T, B]``,
 sensitivities ``[Kr, T, B]`` — so each step's loads and stores coalesce.
-The batch is padded to a whole number of power-of-two blocks (no masked
-loads, so interpret mode runs the same kernel on the CPU).
+The batch is padded to a whole number of BLOCK_B-patient blocks (no
+masked loads, so interpret mode runs the same kernel on the CPU).
 
 Two entry points:
 
@@ -38,22 +38,16 @@ from jax.experimental.pallas import triton as pl_triton
 from insite_tpu.core.constants import STEPS_FOR_DT
 
 WARP = 32
-MIN_BLOCK_B = 32
-MAX_BLOCK_B = 256
-# target number of programs: two per streaming multiprocessor of an H100
-# (132 SMs), so even a 10k-patient cohort spreads over the whole card
-TARGET_PROGRAMS = 264
+# patients per program: one warp.  At 10k patients that is 313 programs
+# for the H100's 132 SMs; 32 measured fastest on the card against 64, 128
+# and 256 (PERF.md)
+BLOCK_B = 32
 
 
-def block_size(B: int) -> int:
-    """Patients per program: the largest power of two in
-    [MIN_BLOCK_B, MAX_BLOCK_B] that still gives TARGET_PROGRAMS programs
-    (the work is a latency-bound sequential chain per patient, so spreading
-    it over every SM matters more than fat blocks)."""
-    block = MAX_BLOCK_B
-    while block > MIN_BLOCK_B and -(-B // block) < TARGET_PROGRAMS:
-        block //= 2
-    return block
+def kernels_default() -> bool:
+    """Whether the kernels are the default rollout path: on a GPU backend
+    (the only target they compile for; elsewhere the XLA scan runs)."""
+    return jax.default_backend() == 'gpu'
 
 
 def _theta(planes, e):
@@ -178,7 +172,7 @@ def _sens_kernel(coefs_ref, y0_ref, statics_ref, arms_ref, out_ref,
                    arms_ref[0, :]))
 
 
-def _to_patient_minor(library, coefs, y0, statics, arms, block):
+def _to_patient_minor(library, coefs, y0, statics, arms):
     """[B, ...] operands -> patient-minor layout padded to a whole number
     of blocks.  Returns (B_pad, coefs [A*F, B_pad], y0 [B_pad],
     statics [S, B_pad], arms [T, B_pad])."""
@@ -187,7 +181,7 @@ def _to_patient_minor(library, coefs, y0, statics, arms, block):
     assert len(library.exponents()) == F
     assert library.n_inputs == 1 + statics.shape[-1], \
         'joint mode is not supported by the kernel'
-    B_pad = -(-B // block) * block
+    B_pad = -(-B // BLOCK_B) * BLOCK_B
     pad = B_pad - B
 
     def minor(x):                          # [B, n] -> [n, B_pad]
@@ -198,26 +192,26 @@ def _to_patient_minor(library, coefs, y0, statics, arms, block):
             minor(arms.astype(jnp.int32)))
 
 
-def _specs(block, A, F, S, T):
+def _specs(A, F, S, T):
     return [
-        pl.BlockSpec((A * F, block), lambda i: (0, i)),
-        pl.BlockSpec((block,), lambda i: (i,)),
-        pl.BlockSpec((S, block), lambda i: (0, i)),
-        pl.BlockSpec((T, block), lambda i: (0, i)),
+        pl.BlockSpec((A * F, BLOCK_B), lambda i: (0, i)),
+        pl.BlockSpec((BLOCK_B,), lambda i: (i,)),
+        pl.BlockSpec((S, BLOCK_B), lambda i: (0, i)),
+        pl.BlockSpec((T, BLOCK_B), lambda i: (0, i)),
     ]
 
 
-def _compiler_params(block):
-    return pl_triton.CompilerParams(num_warps=max(1, block // WARP),
+def _compiler_params():
+    return pl_triton.CompilerParams(num_warps=max(1, BLOCK_B // WARP),
                                     num_stages=1)
 
 
 @functools.partial(jax.jit, static_argnames=('library', 'dt', 'substeps',
                                              'interpret', 'y_clip',
-                                             'active_idx', 'block'))
+                                             'active_idx'))
 def pallas_rollout_with_sens(library, coefs, y0, statics, arms, dt,
                              active_idx, substeps=STEPS_FOR_DT,
-                             interpret=False, y_clip=None, block=None):
+                             interpret=False, y_clip=None):
     """Rollout + d y / d c_active in ONE kernel pass.
 
     coefs: [B, A, F] per-patient coefficients; active_idx: static tuple of
@@ -230,23 +224,22 @@ def pallas_rollout_with_sens(library, coefs, y0, statics, arms, dt,
     exps = tuple(map(tuple, library.exponents()))
     act = tuple((int(i) // F, int(i) % F) for i in active_idx)
     Kr = len(act)
-    block = block or block_size(B)
     B_pad, coefs_p, y0_p, statics_p, arms_p = _to_patient_minor(
-        library, coefs, y0, statics, arms, block)
+        library, coefs, y0, statics, arms)
 
     kernel = functools.partial(_sens_kernel, exps=exps, A=A, F=F, S=S, T=T,
                                dt=float(dt), substeps=substeps,
                                y_clip=y_clip, active_idx=act)
     out, sens = pl.pallas_call(
         kernel,
-        grid=(B_pad // block,),
-        in_specs=_specs(block, A, F, S, T),
-        out_specs=[pl.BlockSpec((T, block), lambda i: (0, i)),
-                   pl.BlockSpec((Kr, T, block), lambda i: (0, 0, i))],
+        grid=(B_pad // BLOCK_B,),
+        in_specs=_specs(A, F, S, T),
+        out_specs=[pl.BlockSpec((T, BLOCK_B), lambda i: (0, i)),
+                   pl.BlockSpec((Kr, T, BLOCK_B), lambda i: (0, 0, i))],
         out_shape=[jax.ShapeDtypeStruct((T, B_pad), y0.dtype),
                    jax.ShapeDtypeStruct((Kr, T, B_pad), y0.dtype)],
         backend='triton',
-        compiler_params=_compiler_params(block),
+        compiler_params=_compiler_params(),
         interpret=interpret,
         name='insite_rollout_sens',
     )(coefs_p, y0_p, statics_p, arms_p)
@@ -254,10 +247,10 @@ def pallas_rollout_with_sens(library, coefs, y0, statics, arms, dt,
 
 
 @functools.partial(jax.jit, static_argnames=('library', 'dt', 'substeps',
-                                             'interpret', 'y_clip', 'block'))
+                                             'interpret', 'y_clip'))
 def pallas_batched_rollout(library, coefs, y0, statics, arms, dt,
                            substeps=STEPS_FOR_DT, interpret=False,
-                           y_clip=None, block=None):
+                           y_clip=None):
     """`batched_rollout(..., joint=False)` on the GPU.
 
     coefs: [1, A, F] (shared by every row) or [B, A, F]; y0: [B];
@@ -268,21 +261,20 @@ def pallas_batched_rollout(library, coefs, y0, statics, arms, dt,
     A, F = coefs.shape[-2:]
     S = statics.shape[-1]
     exps = tuple(map(tuple, library.exponents()))
-    block = block or block_size(B)
     B_pad, coefs_p, y0_p, statics_p, arms_p = _to_patient_minor(
-        library, coefs, y0, statics, arms, block)
+        library, coefs, y0, statics, arms)
 
     kernel = functools.partial(_rollout_kernel, exps=exps, A=A, F=F, S=S,
                                T=T, dt=float(dt), substeps=substeps,
                                y_clip=y_clip)
     out = pl.pallas_call(
         kernel,
-        grid=(B_pad // block,),
-        in_specs=_specs(block, A, F, S, T),
-        out_specs=pl.BlockSpec((T, block), lambda i: (0, i)),
+        grid=(B_pad // BLOCK_B,),
+        in_specs=_specs(A, F, S, T),
+        out_specs=pl.BlockSpec((T, BLOCK_B), lambda i: (0, i)),
         out_shape=jax.ShapeDtypeStruct((T, B_pad), y0.dtype),
         backend='triton',
-        compiler_params=_compiler_params(block),
+        compiler_params=_compiler_params(),
         interpret=interpret,
         name='insite_rollout',
     )(coefs_p, y0_p, statics_p, arms_p)

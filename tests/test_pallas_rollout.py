@@ -238,23 +238,55 @@ def test_forced_kernel_off_the_gpu_needs_interpret_mode():
                                jnp.zeros((B, T), jnp.int32), 1.0)
 
 
-@pytest.mark.parametrize('B,block', [(1, 32), (32, 32), (10_000, 32),
-                                     (40_000, 128), (10 ** 6, 256)])
-def test_block_size_spreads_the_grid(B, block):
-    """The largest power-of-two block in [32, 256] that still gives two
-    programs per SM of an H100 (264), so a 10k cohort fills the card."""
-    from insite_tpu.ops.pallas_rollout import block_size
-    assert block_size(B) == block
+@pytest.mark.parametrize('backend,expected', [('gpu', True),
+                                              ('cpu', False)])
+def test_kernels_default_follows_the_backend(monkeypatch, backend,
+                                             expected):
+    from insite_tpu import ops
+    monkeypatch.setattr(ops.pallas_rollout.jax, 'default_backend',
+                        lambda: backend)
+    assert ops.kernels_default() is expected
 
 
-@pytest.mark.parametrize('block', [32, 64])
-def test_results_do_not_depend_on_the_block(block):
+@pytest.mark.parametrize('kernels', [True, False])
+def test_northstar_takes_the_shared_kernel_default(monkeypatch, kernels):
+    """fused_northstar's default fine-tune is `kernels_default()`'s choice:
+    told the kernels are the default on the CPU, it runs the compiled
+    kernel and fails (no interpret mode, no fallback)."""
+    from insite_tpu.harness import northstar
+    monkeypatch.setattr(northstar, 'kernels_default', lambda: kernels)
+    if kernels:
+        with pytest.raises(Exception, match='interpret'):
+            northstar.fused_northstar(40, seed=0)
+        return
+    r = northstar.fused_northstar(40, seed=0)
+    assert not r['used_pallas']
+    assert r['preds'].shape == (40, 59)
+    assert r['patient_coefs'].shape == (40,) + r['coefs'].shape
+
+
+@pytest.fixture
+def block_b(monkeypatch, request):
+    """Set the kernels' patient block for one test; compiled kernels of
+    other block sizes are dropped before and after."""
+    import jax
+    from insite_tpu.ops import pallas_rollout
+    jax.clear_caches()
+    monkeypatch.setattr(pallas_rollout, 'BLOCK_B', request.param)
+    yield request.param
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize('block_b', [32, 64], indirect=True)
+def test_results_do_not_depend_on_the_block(block_b):
     """Padding the batch to whole blocks (here 70 rows -> 96 or 128) and
-    the block size itself leave every real row's result unchanged."""
+    the block size itself leave every real row's result unchanged: both
+    kernels against the XLA rollout and jacfwd through it."""
+    import jax
     from insite_tpu.ops.pallas_rollout import pallas_rollout_with_sens
     lib = PolynomialLibrary(n_inputs=3)
     rng = np.random.RandomState(3)
-    B, T = 70, 6
+    B, T, A, F = 70, 6, 2, lib.n_features
     base = np.stack([[0, 0.3, 0, 0, -1.0, 0, 0],
                      [0, -0.2, 0, 0, 0, -1.0, 0]]).astype(np.float32)
     coefs = jnp.asarray(base[None] * (1 + 0.05 * rng.randn(B, 1, 1)),
@@ -263,16 +295,26 @@ def test_results_do_not_depend_on_the_block(block):
     statics = jnp.asarray(rng.rand(B, 2), jnp.float32)
     arms = jnp.asarray(rng.randint(0, 2, (B, T)), jnp.int32)
     act = (1, 4, 12)
-    y_ref, s_ref = pallas_rollout_with_sens(lib, coefs, y0, statics, arms,
-                                            0.5, act, interpret=True)
     y, s = pallas_rollout_with_sens(lib, coefs, y0, statics, arms, 0.5, act,
-                                    interpret=True, block=block)
+                                    interpret=True)
     assert y.shape == (B, T) and s.shape == (B, T, len(act))
-    np.testing.assert_array_equal(np.asarray(y), np.asarray(y_ref))
-    np.testing.assert_array_equal(np.asarray(s), np.asarray(s_ref))
     out = pallas_batched_rollout(lib, coefs, y0, statics, arms, 0.5,
-                                 interpret=True, block=block)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(y_ref))
+                                 interpret=True)
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(y))
+
+    ref = batched_rollout(lib, coefs, y0, statics, arms, 0.5)
+    np.testing.assert_allclose(np.asarray(y), np.asarray(ref), rtol=1e-6)
+
+    def roll_one(c_red, c_full, y0_i, st_i, arm_i):
+        c = c_full.reshape(-1).at[jnp.asarray(act)].set(c_red)
+        return batched_rollout(lib, c.reshape(1, A, F), y0_i[None],
+                               st_i[None], arm_i[None], 0.5,
+                               shared_coefs=True)[0]
+
+    c_red = coefs.reshape(B, -1)[:, jnp.asarray(act)]
+    ref_s = jax.vmap(jax.jacfwd(roll_one))(c_red, coefs, y0, statics, arms)
+    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=2e-4,
+                               atol=1e-5)
 
 
 def test_sensitivity_kernel_degree4_library():
